@@ -1,49 +1,33 @@
-"""Headline benchmarks at the auditory-LFP workload size.
+"""Auditory-shape benchmarks, measured live on the device JAX finds.
 
 Problem size = the reference's flagship fit
 (``auditory_lfp/fit_gpcsd_baseline.py``): nx=24 electrodes, nt=600 time
 points, 100 trials, ngl=100 quadrature nodes.
 
-Prints TWO JSON lines ({"metric", "value", "unit", "vs_baseline"} each):
+Prints TWO JSON lines, each naming the device it ran on:
 
-1. **NUTS samples/s/chip** (the BASELINE.json north star) — taken from
-   the completed paper-scale posterior run artifact when present
-   (``results/paper_nuts/paper_nuts_auditory.json``: 4 chains x 500
-   warmup + 500 samples via the chunked driver, median sampling-chunk
-   throughput), else measured live with a short chunked run at the same
-   configuration.  ``vs_baseline`` divides by the implied rate of a
-   reference-style numpy sampler: baseline forward evals/s / (mean
-   leapfrogs per sample) — optimistic for the baseline, since the real
-   reference would also pay autograd's reverse pass per leapfrog.
-2. **log-joint value+grad evals/s** — jitted ``value_and_grad`` on the
-   accelerator vs the reference-style numpy float64 *forward-only*
-   log-joint (eigh of Ks/Kt + per-trial quad-form loop, mirroring
-   ``gpcsd1d.py:113-128``); a lower bound on the true speedup.
+1. **log-joint value+grad evals/s** — jitted ``value_and_grad`` vs the
+   reference-style numpy float64 *forward-only* log-joint (eigh of Ks/Kt +
+   per-trial quad-form loop, mirroring ``gpcsd1d.py:113-128``); a lower
+   bound on the true speedup.
+2. **NUTS samples/s** — a live run through ``sample_posterior`` on the
+   model-family surrogate (:func:`build_nuts_problem`, per-channel noise,
+   exact factorization): MAP fit, Laplace whitening from the in-process
+   Hessian, dense metric.  The run must pass the sampler-health gates
+   (:func:`nuts_gate_failures`); an unhealthy run reports ``value: null``
+   and its reasons rather than a degenerate rate.
 """
 
 import json
-import os
 import time
 
 import numpy as np
 
 NX, NT, NTRIALS, NGL = 24, 600, 100, 100
-_ROOT = os.path.dirname(os.path.abspath(__file__))
-#: candidate paper-run artifacts, preferred order: the dense-metric run
-#: (scripts/paper_nuts_run.py --dense-mass, the production configuration
-#: since round 5) supersedes the pooled-covariance rescue and the primary
-#: diagonal-metric run when it exists and passes the health gates
-PAPER_RUNS = [
-    os.path.join(_ROOT, "results", "paper_nuts_hetx",
-                 "paper_nuts_auditory.json"),
-    os.path.join(_ROOT, "results", "paper_nuts_family",
-                 "paper_nuts_auditory.json"),
-    os.path.join(_ROOT, "results", "paper_nuts_dense",
-                 "paper_nuts_auditory.json"),
-    os.path.join(_ROOT, "results", "paper_nuts_rescue",
-                 "paper_nuts_auditory.json"),
-    os.path.join(_ROOT, "results", "paper_nuts", "paper_nuts_auditory.json"),
-]
+
+NUTS_CHAINS = 4
+NUTS_WARMUP = NUTS_SAMPLES = 100
+NUTS_MAX_DEPTH = 7
 
 
 def build_problem(seed=0):
@@ -68,11 +52,7 @@ def bench_ours(m, n_iters=50):
     import jax
     import jax.numpy as jnp
 
-    # precondition=True is the production sampler path: NUTS/SMC always run
-    # with the temporal eigh preconditioned on the MAP (sample_posterior's
-    # default).  Exactness is unchanged (tests/test_precondition.py); it
-    # cuts Jacobi sweeps ~2.3x on TPU (PERF.md).
-    fns = m._fns(precondition=True)
+    fns = m._fns()
     Y = m._Y()
     u0 = np.asarray(fns.param_set.pack(m._theta()))
 
@@ -139,25 +119,28 @@ def bench_baseline(m, n_iters=5):
     return n_iters / dt
 
 
-NUTS_MAX_DEPTH = 7
-NUTS_CHUNK = 2
-NUTS_WARMUP = NUTS_SAMPLES = 40
+def build_nuts_problem(seed=0, het_noise="approx"):
+    """Model-family surrogate at the bench geometry: prior CSD draw ->
+    Kronecker LFP covariance -> iid noise, amplitudes scaled so LFP-space
+    signal variance ~0.5 vs sig2n 0.01 (the paper's SNR regime).  A NUTS
+    rate measured on pure-noise data is degenerate (~1 leapfrog per
+    sample), so the benchmark must pose a realistic posterior.
 
-
-def build_nuts_problem(seed=0):
-    """Model-family surrogate at the bench geometry for the live NUTS
-    fallback: prior CSD draw -> Kronecker LFP covariance -> iid noise,
-    amplitudes scaled so LFP-space signal variance ~0.5 vs sig2n 0.01
-    (the paper run's SNR regime).  A NUTS rate measured on pure-noise
-    data is degenerate — the round-3 fallback adapted to ~1
-    leapfrog/sample and published a 170x-inflated headline (VERDICT r3
-    weak #1) — so the fallback must pose a realistic posterior."""
+    :param het_noise: ``"exact"`` gives the model one noise variance per
+        channel (reference per-channel priors) and the exact noise-whitened
+        factorization — the configuration production sampling uses;
+        ``"approx"`` keeps a single shared noise variance.
+    """
     import gpcsd_tpu as g
 
     rng = np.random.default_rng(seed)
     x = (np.arange(NX) * 100.0).reshape(-1, 1)
     t = np.arange(NT).reshape(-1, 1) * 1.0
-    m = g.GPCSD1D(np.zeros((NX, NT, NTRIALS)), x, t, ngl=NGL)
+    kw = {}
+    if het_noise == "exact":
+        kw = dict(sig2n_prior=[g.HalfNormal(0.1) for _ in range(NX)],
+                  het_noise="exact")
+    m = g.GPCSD1D(np.zeros((NX, NT, NTRIALS)), x, t, ngl=NGL, **kw)
     m.R["value"] = 150.0
     m.spatial_cov.params["ell"]["value"] = 200.0
     m.temporal_cov_list[0].params["ell"]["value"] = 8.0
@@ -171,7 +154,7 @@ def build_nuts_problem(seed=0):
     s1, s2, sig2n = 0.35 / c, 0.15 / c, 0.01
     m.temporal_cov_list[0].params["sigma2"]["value"] = s1
     m.temporal_cov_list[1].params["sigma2"]["value"] = s2
-    m.sig2n["value"] = sig2n
+    m.sig2n["value"] = np.full(NX, sig2n) if het_noise == "exact" else sig2n
     theta = m._theta()
     Kt = np.asarray(fns.build_kt(theta), dtype=np.float64)
     Ls = np.linalg.cholesky(Ks + 1e-10 * np.trace(Ks) / NX * np.eye(NX))
@@ -183,128 +166,116 @@ def build_nuts_problem(seed=0):
     return m
 
 
-def artifact_gate_failures(art):
-    """Health-gate failures for a paper-run artifact (empty = healthy).
+def nuts_gate_failures(steps, accept, n_divergent, max_rhat, max_depth):
+    """Sampler-health gate failures (empty = healthy).
 
-    A throughput number from a run whose chains did not mix (round-2:
-    R-hat ~1e4) or whose sampler was degenerate (~1 leapfrog/sample,
-    round-3 fallback) is not a headline."""
-    rate = art.get("samples_per_s_per_chip_median")
-    steps = art.get("mean_leapfrogs_per_sample")
-    rhat = art.get("max_rhat")
+    A throughput number from a degenerate sampler (~1 leapfrog per
+    transition), a frozen one (every tree at the depth cap, or acceptance
+    far off its target), a divergent one, or one whose chains did not mix
+    is not a result.  The R-hat bound is loose because the runs are short.
+    """
+    max_traj = 2 ** (max_depth - 1)
     failures = []
-    if not rate:
-        failures.append("no rate recorded")
-    if rhat is None or rhat >= 1.05:
-        failures.append("max_rhat=%s" % rhat)
-    if (steps or 0) < 4:
-        failures.append("mean leapfrogs %s < 4 (degenerate)" % steps)
+    if not (steps is not None and 4.0 <= steps <= max_traj):
+        failures.append(
+            "mean leapfrogs/transition %s outside [4, %d]" % (steps, max_traj)
+        )
+    if not (accept is not None and 0.6 <= accept <= 0.95):
+        failures.append("mean acceptance %s outside [0.6, 0.95]" % accept)
+    if n_divergent is None or n_divergent > 0:
+        failures.append("%s post-warmup divergences" % n_divergent)
+    if not (max_rhat is not None and max_rhat < 2.0):
+        failures.append("max split-R-hat %s not < 2" % max_rhat)
     return failures
 
 
-def artifact_nuts_rate(art):
-    """(rate, steps, source, max_rhat) from a HEALTHY artifact, else None."""
-    if artifact_gate_failures(art):
-        return None
-    cfg = art.get("config", {})
-    src = "paper-run artifact (%sx(%s+%s), max_depth=%s, chunk_size=%s%s)" % (
-        cfg.get("chains"), cfg.get("warmup"), cfg.get("samples"),
-        cfg.get("max_depth", "?"), cfg.get("chunk_size"),
-        (", metric=%s" % cfg["metric"]) if cfg.get("metric") else "",
+def nuts_health(post, max_depth):
+    """Health summary of a ``sample_posterior`` result, gates applied."""
+    d = post.diagnostics
+    rhats = d.get("rhat", {})
+    max_rhat = max((float(np.max(v)) for v in rhats.values()), default=None)
+    out = {
+        "mean_leapfrogs_per_transition": float(np.mean(d["num_steps"])),
+        "mean_acceptance": float(np.mean(d["accept_prob"])),
+        "divergences": int(np.sum(d["diverging"])),
+        "max_rhat": max_rhat,
+    }
+    out["gate_failures"] = nuts_gate_failures(
+        out["mean_leapfrogs_per_transition"], out["mean_acceptance"],
+        out["divergences"], max_rhat, max_depth,
     )
-    return (
-        art["samples_per_s_per_chip_median"],
-        art["mean_leapfrogs_per_sample"],
-        src,
-        art.get("max_rhat"),
+    return out
+
+
+class CompileTimer:
+    """Sums the seconds JAX spends tracing, lowering and compiling inside
+    the ``with`` block, so a timed call that compiles can report its
+    steady time as wall time minus this."""
+
+    EVENTS = (
+        "/jax/core/compile/jaxpr_trace_duration",
+        "/jax/core/compile/jaxpr_to_mlir_module_duration",
+        "/jax/core/compile/backend_compile_duration",
     )
 
+    def __enter__(self):
+        import jax
 
-def bench_nuts(base_evals_per_s):
-    """NUTS samples/s/chip: paper-run artifact if present and healthy,
-    else a short live run through ``sample_posterior`` on a model-family
-    surrogate — the production path (Laplace MAP-Hessian whitening +
-    MAP-centered preconditioning + warm-basis threading + chunked
-    dispatches).  Either source must pass sampler-health gates; an
-    unhealthy run reports ``value: null`` + reason rather than a
-    degenerate rate (VERDICT r3 next #2).
+        self.seconds = 0.0
 
-    Returns (rate_or_None, mean_leapfrogs, source_description, max_rhat)."""
-    max_traj = 2 ** (NUTS_MAX_DEPTH - 1)
-    for path in PAPER_RUNS:
-        if not os.path.isfile(path):
-            continue
-        with open(path) as f:
-            art = json.load(f)
-        gated = artifact_nuts_rate(art)
-        if gated is not None:
-            return gated
-        print(
-            json.dumps({"note": "paper artifact failed gates; trying next",
-                        "path": os.path.relpath(path, _ROOT),
-                        "reasons": artifact_gate_failures(art)})
+        def listen(event, duration, **kwargs):
+            if event in self.EVENTS:
+                self.seconds += duration
+
+        self._listen = listen
+        jax.monitoring.register_event_duration_secs_listener(listen)
+        return self
+
+    def __exit__(self, *exc):
+        import jax
+
+        jax.monitoring.unregister_event_duration_listener(self._listen)
+        return False
+
+
+def run_nuts(m, mesh=None, seed=5, num_warmup=NUTS_WARMUP,
+             num_samples=NUTS_SAMPLES, **kw):
+    """One ``sample_posterior`` call with the benchmark's sampler settings;
+    returns (posterior, stats).  ``samples_per_s`` charges warmup: it is
+    post-warmup draws over the run's wall time less compilation."""
+    with CompileTimer() as ct:
+        t0 = time.perf_counter()
+        post = m.sample_posterior(
+            n_chains=NUTS_CHAINS, num_warmup=num_warmup,
+            num_samples=num_samples, max_depth=NUTS_MAX_DEPTH,
+            dense_mass=True, seed=seed, mesh=mesh, **kw,
         )
-    times = {}
-    last = {"t": time.perf_counter()}
+        wall = time.perf_counter() - t0
+    run_s = wall - ct.seconds
+    stats = {
+        "num_warmup": num_warmup,
+        "num_samples": num_samples,
+        "wall_s": wall,
+        "compile_s": ct.seconds,
+        "samples_per_s": NUTS_CHAINS * num_samples / run_s,
+    }
+    stats.update(nuts_health(post, NUTS_MAX_DEPTH))
+    return post, stats
 
-    def cb(c, carry):
-        now = time.perf_counter()
-        times[c] = now - last["t"]
-        last["t"] = now
 
-    m = build_nuts_problem()
-    post = m.sample_posterior(
-        n_chains=4, num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
-        seed=5, chunk_size=NUTS_CHUNK, max_depth=NUTS_MAX_DEPTH, callback=cb,
-    )
-    n_warm_chunks = NUTS_WARMUP // NUTS_CHUNK
-    samp = [v for k, v in times.items() if k >= n_warm_chunks]
-    med = float(np.median(samp))
-    steps = float(np.asarray(post.diagnostics["num_steps"]).mean())
-    accept = float(np.asarray(post.diagnostics["accept_prob"]).mean())
-    ndiv = int(np.asarray(post.diagnostics["diverging"]).sum())
-    rhats = post.diagnostics.get("rhat", {})
-    max_rhat = max(
-        (float(np.max(v)) for v in rhats.values()), default=float("inf")
-    )
-    src = (
-        "live 4x(%d+%d) whitened chunked measurement, max_depth=%d, "
-        "chunk_size=%d" % (NUTS_WARMUP, NUTS_SAMPLES, NUTS_MAX_DEPTH, NUTS_CHUNK)
-    )
-    # sampler-health gates: a rate from a degenerate or non-mixing run is
-    # worse than no number at all
-    failures = []
-    if not (4.0 <= steps <= max_traj):
-        failures.append(
-            "mean leapfrogs/transition %.2f outside [4, %d]" % (steps, max_traj)
-        )
-    if not (0.6 <= accept <= 0.95):
-        failures.append("mean acceptance %.3f outside [0.6, 0.95]" % accept)
-    if ndiv > 0:
-        failures.append("%d post-warmup divergences" % ndiv)
-    # the live run is short (40+40), so the R-hat gate is loose — but a
-    # badly mixing run (not just a frozen one) must still not publish a
-    # headline rate (ADVICE r4)
-    if not max_rhat < 2.0:
-        failures.append(
-            "max split-R-hat %s not < 2 (short-run mixing gate)" % max_rhat
-        )
-    if failures:
-        return (
-            None, steps, src + " FAILED HEALTH GATES: " + "; ".join(failures),
-            max_rhat,
-        )
-    return 4 * NUTS_CHUNK / med, steps, src, max_rhat
+def device_label():
+    import jax
+
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices())}
 
 
 def main():
     m = build_problem()
     ours = bench_ours(m)
     base = bench_baseline(m)
-    nuts_rate, steps, source, max_rhat = bench_nuts(base)
-    # implied reference-style sampler rate: forward evals/s / leapfrogs per
-    # sample (no reverse-pass cost charged -> optimistic for the baseline)
-    base_nuts = base / max(steps or 32.0, 1.0)
+    dev = device_label()
     print(
         json.dumps(
             {
@@ -312,28 +283,29 @@ def main():
                 "value": round(ours, 3),
                 "unit": "evals/s",
                 "vs_baseline": round(ours / base, 2),
+                "device": dev,
             }
         )
     )
-    # north-star metric last (the driver records the final JSON line);
-    # self-describing config so cross-round BENCH_*.json lines compare
-    # like-for-like (ADVICE r3), null + reason if health gates failed
+    nm = build_nuts_problem(het_noise="exact")
+    nm.fit(n_restarts=10)
+    _, st = run_nuts(nm)
+    healthy = not st["gate_failures"]
     print(
         json.dumps(
             {
-                "metric": "NUTS samples/s/chip, auditory config (4 chains; " + source + ")",
-                "value": None if nuts_rate is None else round(nuts_rate, 3),
+                "metric": "NUTS samples/s, auditory surrogate (%d chains x "
+                          "(%d+%d), max_depth=%d, dense metric, Laplace "
+                          "whitening; warmup charged)"
+                          % (NUTS_CHAINS, NUTS_WARMUP, NUTS_SAMPLES,
+                             NUTS_MAX_DEPTH),
+                "value": round(st["samples_per_s"], 3) if healthy else None,
                 "unit": "samples/s",
-                "vs_baseline": (
-                    None if nuts_rate is None else round(nuts_rate / base_nuts, 2)
-                ),
-                "mean_leapfrogs_per_sample": round(steps, 2) if steps else None,
-                "max_rhat": (
-                    None if max_rhat is None or not np.isfinite(max_rhat)
-                    else round(float(max_rhat), 4)
-                ),
-                "max_depth": NUTS_MAX_DEPTH,
-                "chunk_size": NUTS_CHUNK,
+                "device": dev,
+                **{k: st[k] for k in ("compile_s",
+                                      "mean_leapfrogs_per_transition",
+                                      "mean_acceptance", "divergences",
+                                      "max_rhat", "gate_failures")},
             }
         )
     )

@@ -1,11 +1,11 @@
-"""gpcsd-tpu: TPU-native probabilistic inference engine for GPCSD.
+"""gpcsd-tpu: a JAX probabilistic inference engine for GPCSD.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference ``gpcsd`` package (Klein et al. 2021, arXiv:2104.10070): Gaussian
 process current-source-density estimation from LFP recordings, with a
 Kronecker-structured marginal likelihood, quadrature forward-model
 covariances, MAP / NUTS / ADVI / SMC hyperparameter inference, and
-multi-chip scaling via jax.sharding.
+multi-device scaling via jax.sharding.
 """
 
 from . import config  # noqa: F401  (sets x64 policy at import)

@@ -1,48 +1,57 @@
 """Global numeric policy for gpcsd-tpu.
 
 The reference implementation (``/root/reference/src/gpcsd``) runs everything in
-float64 on CPU; float64 is load-bearing there because the Gauss-Legendre Gram
-matrix at ngl=100 is ill-conditioned (see SURVEY.md §5 "Jitter").  On TPU,
-float64 is emulated and slow, so the policy here is *mixed*:
+float64; float64 is load-bearing there because the Gauss-Legendre Gram matrix
+at ngl=100 is ill-conditioned (see SURVEY.md §5 "Jitter").  Every backend
+here runs the same float64 path by default (the CPU and the GPU both have
+native float64 and LAPACK / cuSOLVER eigensolvers).  Two knobs remain for
+explicit experiments:
 
 - ``factor_dtype``: dtype for covariance construction, eigendecompositions and
-  Cholesky factors (small matrices: nx<=128, nt<=2500).  Defaults to float64
-  (requires ``jax_enable_x64``); can be dropped to float32 per-workload when
-  the jitter floor is proven sufficient.
+  Cholesky factors (small matrices: nx<=128, nt<=2500).  ``float32`` selects
+  the mixed-precision factor path (``kronlik.eigh_mixed``).
 - ``compute_dtype``: dtype for the large batched contractions (trial
-  quad-forms, posterior matvecs) that ride the MXU.
+  quad-forms, posterior matvecs).
 
 x64 is enabled at import time: correctness of the marginal likelihood
 (log-determinant of D with sig2n as small as 1e-8, reference
-``gpcsd1d.py:117-123``) is the default contract; speed knobs are opt-in.
+``gpcsd1d.py:117-123``) is the default contract.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: XLA's TPU `eigh` lowering has a compile-time
-# cliff (measured on TPU v5e: n=256 -> 2s, n=384 -> 164s, n=512 -> 293s).
-# Caching makes that a one-time cost per machine; see ops/jacobi.py for the
-# fast-compiling fallback used in fresh environments.
-import os as _os
+#: Root of the checkout that holds this package.
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_cache_dir = _os.environ.get(
-    "GPCSD_TPU_COMPILE_CACHE", _os.path.expanduser("~/.cache/gpcsd_tpu_xla")
-)
-try:
-    # accelerators only: XLA:CPU AOT cache entries are machine-feature
-    # specific and can SIGILL when the detected feature set drifts
-    if _os.environ.get("JAX_PLATFORMS", "") not in ("cpu",):
+
+def compile_cache_dir(environ=os.environ) -> str | None:
+    """Directory of JAX's persistent compilation cache, or None for no cache.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, wins (JAX reads it itself).
+    Otherwise accelerator runs cache under ``<checkout>/.jax_cache`` — a
+    fixed path, since the path is part of the cache key.  CPU-only runs keep
+    no cache: XLA:CPU entries are specific to the host's detected feature
+    set and can SIGILL when it drifts.
+    """
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return environ["JAX_COMPILATION_CACHE_DIR"]
+    if environ.get("JAX_PLATFORMS", "") == "cpu":
+        return None
+    return os.path.join(_CHECKOUT, ".jax_cache")
+
+
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):  # else JAX reads it
+    _cache_dir = compile_cache_dir()
+    if _cache_dir:
         jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # older jax without the knobs; caching is best-effort
-    pass
 
 #: Diagonal jitter added to spatial covariances, matching the reference
 #: (``gpcsd1d.py:17`` and ``gpcsd2d.py:16``).
@@ -53,47 +62,30 @@ JITTER_2D = 1e-7
 @dataclasses.dataclass
 class Policy:
     #: dtype for covariance construction, eigendecompositions, D.  ``None``
-    #: means "float64 on CPU, float32 on accelerators": TPU f64 matmuls are
-    #: software-emulated (the eigh JVP alone costs seconds at nt=600), and
-    #: the TPU's own f64 eigh is only f32-accurate anyway.
+    #: means float64.
     factor_dtype: jnp.dtype | None = None
-    #: dtype for the large batched trial contractions (MXU path).  ``None``
-    #: means "float64 on CPU (native, exact), float32 on accelerators"
-    #: — float64 matmuls are software-emulated on TPU (measured 1.6 s for
-    #: the auditory-size contraction vs ~1 ms in f32).
+    #: dtype for the large batched trial contractions.  ``None`` means
+    #: float64.
     compute_dtype: jnp.dtype | None = None
 
     def resolve_compute_dtype(self):
-        if self.compute_dtype is not None:
-            return self.compute_dtype
-        return jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
+        return jnp.float64 if self.compute_dtype is None else self.compute_dtype
 
     #: Mixed path only: solve the PRECONDITIONED temporal congruence with
     #: the identity-start fixed-budget refinement (``_eigh_mixed_ident``)
     #: instead of an f32-eigh start + fixed refinement.  The congruence to
     #: a trajectory-threaded (or MAP-centered, posterior-local) basis is
     #: already near-diagonal, so the f32 eigh start is redundant work.
-    #: Round-4 measurement said False (15.9 vs 12.7 ms) because the
-    #: sweeps were exact-tracked (f64-accumulation matmuls); with the
-    #: round-5 f32-tracked sweeps (kronlik._mixed_sweep32) the identity
-    #: start wins outright: full value+grad 8.13 vs 9.83 ms at the
-    #: auditory size with BETTER likelihood noise (probe RMS 0.0075 vs
-    #: 0.0106 log-units; f64-tracked round-4 contract was 0.055) —
-    #: default True since round 5.
     temporal_identity_start: bool = True
     #: Mixed path only: solve the spatial eigh as a near-diagonal
-    #: congruence to a MAP-centered basis (round-3 optimization).
-    #: Measured round 4: slower than the exact small-n f64 slices-Jacobi
-    #: (4.4 vs 3.07 ms at nx=24) once the congruence refinement is
-    #: convergence-gated (the fast fixed schedule silently
-    #: under-diagonalized far from center) — keep False; the exact path
-    #: is bias-free everywhere.
+    #: congruence to a MAP-centered basis.  Off by default: the exact
+    #: small-n eigh is bias-free everywhere, while the congruence
+    #: refinement under-diagonalizes far from its center unless it runs
+    #: many convergence-gated sweeps.
     spatial_precondition: bool = False
 
     def resolve_factor_dtype(self):
-        if self.factor_dtype is not None:
-            return self.factor_dtype
-        return jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
+        return jnp.float64 if self.factor_dtype is None else self.factor_dtype
 
 
 _policy = Policy()
@@ -109,7 +101,7 @@ def set_policy(
     temporal_identity_start=None,
     spatial_precondition=None,
 ) -> Policy:
-    """Override the numeric policy (e.g. float32 end-to-end for TPU speed)."""
+    """Override the numeric policy (e.g. the float32 mixed factor path)."""
     global _policy
     _policy = Policy(
         factor_dtype=jnp.dtype(factor_dtype) if factor_dtype else _policy.factor_dtype,

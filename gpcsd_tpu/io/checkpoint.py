@@ -73,8 +73,8 @@ def save_sampler_state(state, path, backend="auto"):
     import jax
 
     flat, treedef = jax.tree_util.tree_flatten(state)
-    # Atomic write: a crash mid-save (the exact flaky-worker scenario this
-    # checkpoint exists for) must never leave a truncated .npz or a
+    # Atomic write: a crash mid-save (the scenario this checkpoint
+    # exists for) must never leave a truncated .npz or a
     # treedef/npz mismatch.  Both files go to temps and are os.replace()d;
     # the .npz lands LAST because its existence is what gates resume.
     tmp_treedef = path + ".treedef.pkl.tmp"

@@ -8,7 +8,7 @@ jit/grad/vmap-able generalization of the reference's ``obj_fun`` closures
 matching the reference objective), NUTS/ADVI/SMC (with the log-det-Jacobian
 of the exp bijector), and prediction.
 
-Trial layout: ``Y`` is ``(ntrials, nx, nt)`` (batch leading, TPU-friendly);
+Trial layout: ``Y`` is ``(ntrials, nx, nt)`` (batch leading);
 the classes transpose from the reference's ``(nx, nt, ntrials)`` at the API
 boundary.
 """
@@ -44,7 +44,7 @@ class ModelFns(NamedTuple):
     # eigenvectors), returning the new basis for the next step.
     build_factors_basis: Callable = None  # theta, basis -> KronFactors
     log_prob_basis: Callable = None  # u, Y, basis -> (scalar, basis_new)
-    qt0: object = None  # (nt, nt) initial basis (MAP/DCT if available)
+    qt0: object = None  # (nt, nt) initial basis (MAP if available)
     # initial basis aux pytree for log_prob_basis: {"qt": qt0} plus
     # {"qs": qs0} when a MAP-centered spatial basis exists (mixed path)
     basis0: object = None
@@ -105,10 +105,9 @@ def make_model_fns(
     :param precondition: optional reference theta (typically the MAP).  The
         temporal eigendecomposition is then solved in that theta's fixed
         eigenbasis: ``B = Q0^T Kt(theta) Q0`` is near-diagonal for theta near
-        the center, so the iterative Jacobi solver converges in 1-2 sweeps
-        instead of ~6 — the hot-loop optimization for NUTS/SMC, where every
-        leapfrog pays a fresh nt x nt eigh (PERF.md).  Exact for all theta
-        (the similarity transform changes nothing but the starting point).
+        the center, which the float32 policy's refinement sweeps exploit.
+        Exact for all theta (the similarity transform changes nothing but
+        the starting point).
     :param het_exact: with per-channel sig2n, use the exact noise-whitened
         factorization instead of the reference's eigenbasis approximation
         (SURVEY.md §5; ``kronlik.comp_eig_d``); no-op for scalar noise.
@@ -127,36 +126,15 @@ def make_model_fns(
             build_ks(theta0), build_kt(theta0), theta0["sig2n"]
         )
         q0t = jnp.asarray(fac0.qt)  # concrete constant basis
-        # Spatial preconditioning (round 3) is RETIRED as the default: the
-        # near-diagonal-congruence trick was measured slower than just
-        # running the exact small-n f64 slices-Jacobi once its fixed sweep
-        # schedule was made correct far from the center (on-device at the
-        # auditory size: exact spatial eigh 3.07 ms vs ~4.4 ms for the
-        # convergence-gated congruence, whose coverage schedule needs ~60
-        # sweeps at leapfrog-sized 1% parameter moves; the old fast fixed
-        # 9-sweep schedule silently under-diagonalized — ADVICE r3 medium,
-        # PERF.md round 4).  _eigh_mixed_b and the dict {qt, qs} basis aux
-        # remain available and tested for configurations where the trade
-        # flips (e.g. much larger nx).
+        # Spatial preconditioning is off by default (config.Policy): the
+        # congruence refinement needs many convergence-gated sweeps at
+        # leapfrog-sized parameter moves.  _eigh_mixed_b and the dict
+        # {qt, qs} basis aux remain available and tested.
         from .. import config as _config
 
         if _config.get_policy().spatial_precondition:
             if not (het_exact and jnp.ndim(theta0["sig2n"])):
                 q0s = jnp.asarray(fac0.qs)
-    else:
-        # Default accelerator preconditioner for uniform time grids: the
-        # DCT basis nearly diagonalizes stationary temporal kernels, so the
-        # iterative eigh converges ~3x faster (PERF.md) with zero change in
-        # semantics (a fixed orthogonal similarity).  This covers the paths
-        # without a MAP center: MAP fitting itself, SMC, ADVI.
-        tt = np.asarray(t_data).reshape(-1)
-        if (
-            tt.size >= kronlik.EIGH_JACOBI_MIN_N
-            and jax.default_backend() != "cpu"
-        ):
-            dts = np.diff(tt)
-            if dts.size and np.allclose(dts, dts[0], rtol=1e-6):
-                q0t = jnp.asarray(kronlik.dct_basis(tt.size))
 
     def build_factors(theta: Dict):
         theta = _full(theta)
@@ -204,10 +182,8 @@ def make_model_fns(
         eigh warm-started in ``basis`` (the trajectory-threading variant of
         ``precondition``: NUTS carries the previous leapfrog's eigenbases,
         so the congruences are near-diagonal at *every* step regardless of
-        how far the chain has drifted from the MAP — PERF.md 'warm-started
-        Jacobi'; threading qs closes the ADVICE r3 finding that a fixed
-        MAP-pinned spatial basis degrades far from the center).  Exact for
-        any orthogonal basis; the basis is a numerical hint only, so it is
+        how far the chain has drifted from the MAP).  Exact for any
+        orthogonal basis; the basis is a numerical hint only, so it is
         detached from differentiation."""
         theta = _full(theta)
         qt_b, qs_b = _split_basis(basis)

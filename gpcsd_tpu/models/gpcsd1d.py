@@ -8,7 +8,7 @@ the functional core in :mod:`gpcsd_tpu.models.core` — pure jitted functions,
 batched trials, factored Kronecker algebra, vmapped restarts.
 
 Data layout: the constructor takes the reference's ``(nx, nt, ntrials)`` LFP
-array and stores a TPU-friendly ``(ntrials, nx, nt)`` copy internally.
+array and stores a batch-leading ``(ntrials, nx, nt)`` copy internally.
 """
 
 from __future__ import annotations
@@ -314,7 +314,7 @@ class GPCSD1D(InferenceAPIMixin):
     ):
         """Multi-restart MAP fit; writes the best parameters back in place.
 
-        :param backend: 'jax' (vmapped restarts, TPU path) or 'scipy'
+        :param backend: 'jax' (vmapped restarts on the device) or 'scipy'
             (serial L-BFGS-B, reference-parity path).
         """
         del method  # only L-BFGS variants are supported, as in the reference
@@ -331,7 +331,7 @@ class GPCSD1D(InferenceAPIMixin):
             gtol=options.get("gtol", 1e-5),
             ftol=options.get("ftol", 1e7 * np.finfo(float).eps),
             verbose=verbose,
-            chunk_iters=options.get("chunk_iters", 4),
+            chunk_iters=options.get("chunk_iters"),
             state_path=options.get("state_path"),
             max_wall_seconds=options.get("max_wall_seconds"),
         )

@@ -341,7 +341,7 @@ class GPCSD2D(InferenceAPIMixin):
             gtol=options.get("gtol", 1e-5),
             ftol=options.get("ftol", 1e7 * np.finfo(float).eps),
             verbose=verbose,
-            chunk_iters=options.get("chunk_iters", 4),
+            chunk_iters=options.get("chunk_iters"),
             state_path=options.get("state_path"),
             max_wall_seconds=options.get("max_wall_seconds"),
         )

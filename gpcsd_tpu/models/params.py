@@ -79,16 +79,13 @@ class ParamSet:
             parts.append(jnp.log(v / s.scale))
         return jnp.concatenate(parts)
 
-    #: Positive floor on constrained values.  TPU float64 is emulated in
-    #: double-f32 whose representable range is float32's: ``exp(u)`` for
-    #: u below ~-87 flushes to EXACTLY 0 on device while CPU float64
-    #: keeps a tiny positive number — and a zero turns InvGamma/log-prior
-    #: terms into -inf (measured: one Neuropixels-2D acceptance point
-    #: evaluated +inf on TPU, finite on CPU, because tm1_sigma2 unpacked
-    #: to 0.0).  The floor sits just above the f32 flush threshold; any
+    #: Positive floor on constrained values.  In a float32 range
+    #: ``exp(u)`` for u below ~-87 flushes to EXACTLY 0 while float64 keeps
+    #: a tiny positive number — and a zero turns InvGamma/log-prior terms
+    #: into -inf.  The floor sits just above the f32 flush threshold; any
     #: value near it is astronomically improbable under every prior, so
-    #: this only converts a device-dependent -inf cliff into the same
-    #: astronomically-negative-but-finite density CPU f64 reports.
+    #: this only converts a dtype-dependent -inf cliff into the same
+    #: astronomically-negative-but-finite density float64 reports.
     VALUE_FLOOR = 1e-35
 
     def unpack(self, u: jnp.ndarray) -> Dict[str, jnp.ndarray]:

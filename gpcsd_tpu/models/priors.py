@@ -7,7 +7,7 @@ heuristic that places the bulk of mass inside a user interval.  Keeping them
 unnormalized is fine for MAP/NUTS; SMC model comparison must use
 ``log_normalizer`` (provided here) to stay consistent (SURVEY.md §5).
 
-TPU-first: ``lpdf`` is a pure jnp function of (possibly batched) values; the
+``lpdf`` is a pure jnp function of (possibly batched) values; the
 reference's ``x <= 0 -> -inf`` branch becomes a ``jnp.where`` so it traces.
 ``sample`` takes an explicit PRNG key.
 """

@@ -29,7 +29,7 @@ with sandwich covariance cov(phi_hat) = Gamma^{-1} V Gamma^{-1} / n,
 V = mean_i g_i g_i^T evaluated at phi_hat.  Per-edge significance is the
 Wald chi^2 test on that pair's coefficient block.
 
-TPU-first notes: Gamma_hat is assembled per-node — each stat touches at
+Design notes: Gamma_hat is assembled per-node — each stat touches at
 most two coordinates, so node l contributes a dense block over only the
 O(d) stats involving l; total cost O(d^3 n) instead of the naive O(d^4 n).
 All fits are pure jitted functions; the trial axis vmaps, so the paper's

@@ -9,9 +9,9 @@ Physics parity targets (formulas, not code):
   trapezoid rule (reference ``forward_models.py:20-39`` and ``:57-81``, which
   loop over every (z, t) pair in Python).
 
-TPU-first redesign: the quadrature is a *linear operator* — build the dense
+Redesign: the quadrature is a *linear operator* — build the dense
 (nz, nx) trapezoid-weighted matrix once and apply it as a single matmul over
-all time points (and any leading batch axes) so the MXU does the integral.
+all time points (and any leading batch axes), so one GEMM does the integral.
 """
 
 from __future__ import annotations

@@ -1,11 +1,9 @@
 """Parallel-order cyclic Jacobi symmetric eigensolver in pure JAX.
 
-Why this exists: on the TPU backend, XLA's ``eigh`` lowering hits a
-compile-time cliff for moderate matrix sizes (measured on TPU v5e:
-n=256 -> 2 s, n=384 -> 164 s, n=512 -> 293 s, n=600 -> beyond 10 min — and
-n≈600 is exactly the auditory workload's temporal kernel, SURVEY.md §6).
-This implementation compiles in seconds at any size and is built purely
-from *static* strided slices, elementwise VPU math, and one fixed
+Not on the likelihood path: ``kronlik.eigh_safe`` calls ``jnp.linalg.eigh``
+(LAPACK / cuSOLVER).  This solver is kept as an explicitly callable
+alternative and a relative-accuracy reference on graded spectra.  It is
+built purely from *static* strided slices, elementwise math, and one fixed
 permutation — no dynamic gathers, no unrolling.
 
 Algorithm: cyclic Jacobi with the round-robin ("circle method") parallel
@@ -77,8 +75,7 @@ def _eigh_jacobi_even(A, sigma, tol, max_sweeps: int, use_matmul: bool = False):
     best on CPU / for f64 exactness).
     ``use_matmul=True``: each step applies the n/2 disjoint rotations AND
     the schedule permutation as a single dense orthogonal matrix, so the
-    whole step is two (three with eigenvectors) MXU matmuls — the fast path
-    on TPU, where the slice formulation is HBM-bandwidth-bound.
+    whole step is two (three with eigenvectors) matmuls.
     """
     n = A.shape[-1]
     dtype = A.dtype
@@ -140,7 +137,7 @@ def _eigh_jacobi_even(A, sigma, tol, max_sweeps: int, use_matmul: bool = False):
         J = J.at[diag_idx, diag_idx].set(cd)
         J = J.at[even, odd].set(s).at[odd, even].set(-s)
         G = J[:, sigma]
-        # HIGHEST precision: the TPU default (bf16 passes) destroys the
+        # HIGHEST precision: reduced-precision passes (TF32) destroy the
         # rotation accumulation over thousands of steps
         hp = jax.lax.Precision.HIGHEST
         B = jnp.matmul(jnp.matmul(G.T, B, precision=hp), G, precision=hp)
@@ -192,11 +189,9 @@ def _eigh_block_jacobi(A, tol, nb: int, max_sweeps: int):
     """Two-sided block-Jacobi with the circle schedule at BLOCK granularity.
 
     Each step diagonalizes nb/2 disjoint 2b x 2b pair subproblems with one
-    *batched* ``eigh`` (small enough to dodge the XLA compile cliff), applies
-    all of them plus the schedule permutation as one dense orthogonal matmul,
-    and re-lays-out.  A sweep is only nb-1 sequential steps — two orders of
-    magnitude fewer dispatches than scalar Jacobi, which is what matters on
-    a remote/tunneled accelerator where each step pays launch latency.
+    *batched* ``eigh``, applies all of them plus the schedule permutation as
+    one dense orthogonal matmul, and re-lays-out.  A sweep is only nb-1
+    sequential steps — two orders of magnitude fewer than scalar Jacobi.
 
     Requires n divisible by nb and nb even (callers pad).
     """
@@ -289,10 +284,9 @@ def _eigh_simjac(A, tol, max_iters: int):
     ``I + E`` stays well-conditioned, re-orthogonalizes with two
     Newton-Schulz steps, and applies ``B <- W^T B W``.  Near a diagonal
     matrix the damping is inactive and convergence is quadratic — 2-3
-    iterations of ~7 matmuls, with **no** small-eigh batch per step.  This
-    is the hot path for the MAP-preconditioned sampler likelihood, where
-    ``B = Q0^T Kt Q0`` is near-diagonal (PERF.md: the batched 2b x 2b eighs
-    inside block-Jacobi cost ~17 ms/eval on v5e; this path is matmul-only).
+    iterations of ~7 matmuls, with **no** small-eigh batch per step —
+    suited to near-diagonal congruences such as ``B = Q0^T Kt Q0`` in a
+    MAP-centered basis.
 
     Far from diagonal the overlapping simultaneous rotations fight each
     other, so the loop bails out (heavy damping => no progress) and the
@@ -358,8 +352,7 @@ def _eigh_simjac(A, tol, max_iters: int):
     return B, V, it
 
 
-#: max small-eigh block size for the block solver (2b <= this); chosen well
-#: under the XLA TPU eigh compile cliff at ~384
+#: max small-eigh block size for the block solver (2b <= this)
 BLOCK_EIGH_MAX = 256
 
 
@@ -394,11 +387,8 @@ def _pad_decoupled(A, npad):
 
 def _refine_eigenvalues(A32, V32, out_dtype):
     """High-precision Rayleigh quotients w_i = v_i^T A v_i from f32 factors
-    (f32 multiplies, f64 accumulation)."""
-    AV = jnp.matmul(
-        A32, V32, preferred_element_type=jnp.float64,
-        precision=jax.lax.Precision.HIGHEST,
-    )
+    (f32 multiplies, exact in f64, with f64 accumulation)."""
+    AV = jnp.matmul(A32.astype(jnp.float64), V32.astype(jnp.float64))
     w = jnp.sum(V32.astype(jnp.float64) * AV, axis=0)
     return w.astype(out_dtype)
 
@@ -417,19 +407,18 @@ def _eigh_auto_core(A32, tol, nb: int, max_sweeps: int, max_dm_iters: int):
 def eigh_jacobi(A, max_sweeps: int = 20, method: str | None = None):
     """Symmetric eigendecomposition, ascending eigenvalues (eigh convention).
 
-    :param method: 'slices' (strided updates, full input precision — CPU
+    :param method: 'slices' (strided updates, full input precision — the
         default), 'auto' (simultaneous-Jacobi matmul refinement with
         block-Jacobi fallback, float32 internal with float64 Rayleigh
-        eigenvalue refinement — accelerator default; fastest on
-        near-diagonal inputs, e.g. the preconditioned sampler path),
+        eigenvalue refinement; fastest on near-diagonal inputs),
         'block' (batched 2b x 2b subproblem eighs + one dense rotation
         matmul per step, float32 internal), 'matmul' (dense 2x2 rotation
-        matmuls, float32 internal), or None for the platform default.
+        matmuls, float32 internal), or None for 'slices'.
     """
     A = jnp.asarray(A)
     n = A.shape[-1]
     if method is None:
-        method = "slices" if jax.default_backend() == "cpu" else "auto"
+        method = "slices"
 
     if method in ("block", "auto"):
         npad, nb = _block_partition(n)

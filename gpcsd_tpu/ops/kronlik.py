@@ -11,7 +11,7 @@ congruence transforms ``Qs^T Y Qt`` (reference ``comp_eig_D``
 ``/root/reference/src/gpcsd/utility_functions.py:44-64`` and
 ``GPCSD1D.loglik`` ``gpcsd1d.py:113-128``).
 
-TPU-first redesign decisions:
+Design decisions:
 - trials are a leading batch axis contracted with two batched matmuls
   (``einsum``) instead of the reference's per-trial Python loop;
 - the posterior solve is kept *factored* — ``K^{-1} y`` is three small
@@ -42,39 +42,15 @@ import numpy as np
 
 _EIGH_GAP_EPS = 1e-12
 
-#: On non-CPU backends, matrices larger than this use the Jacobi eigensolver:
-#: XLA's TPU ``eigh`` lowering has a compile-time cliff (n=384 -> 164 s,
-#: n=512 -> 293 s measured on v5e) while the parallel-order Jacobi in
-#: :mod:`gpcsd_tpu.ops.jacobi` compiles in seconds and runs in ~1 ms.
-EIGH_JACOBI_MIN_N = 257
-
-
-def _eigh_impl(a):
-    n = a.shape[-1]
-    if jax.default_backend() != "cpu":
-        from .jacobi import eigh_jacobi
-
-        if n >= EIGH_JACOBI_MIN_N:
-            return eigh_jacobi(a)
-        if a.dtype == jnp.float64:
-            # XLA's TPU float64 eigh is only f32-accurate (PERF.md); the
-            # strided-slice Jacobi runs genuine f64 arithmetic and is cheap
-            # at small n — and, being Jacobi, it resolves the strongly
-            # GRADED quadrature-Gram spectra (14+ decades at the auditory
-            # config) to high relative accuracy, which the likelihood needs
-            return eigh_jacobi(a, method="slices")
-    return jnp.linalg.eigh(a)
-
 
 @jax.custom_jvp
 def eigh_safe(a):
     """Symmetric eigendecomposition with a gap-regularized derivative.
 
-    Returns (eigenvalues, eigenvectors) like ``jnp.linalg.eigh``; the
-    backend implementation is chosen per platform/size (see ``_eigh_impl``).
+    Returns (eigenvalues, eigenvectors) like ``jnp.linalg.eigh`` (LAPACK on
+    the CPU, cuSOLVER on the GPU).
     """
-    w, v = _eigh_impl(a)
-    return w, v
+    return jnp.linalg.eigh(a)
 
 
 @eigh_safe.defjvp
@@ -82,7 +58,7 @@ def _eigh_safe_jvp(primals, tangents):
     (a,) = primals
     (da,) = tangents
     w, v = eigh_safe(a)
-    hp = jax.lax.Precision.HIGHEST  # TPU default matmul precision is bf16
+    hp = jax.lax.Precision.HIGHEST  # float32 inputs: no TF32 on the GPU
     da_sym = 0.5 * (da + jnp.swapaxes(da, -1, -2))
     vt_da_v = jnp.matmul(
         jnp.matmul(jnp.swapaxes(v, -1, -2), da_sym, precision=hp), v, precision=hp
@@ -100,7 +76,7 @@ def _eigh_safe_jvp(primals, tangents):
 
 
 # ---------------------------------------------------------------------------
-# mixed-precision eigendecomposition (accelerator factor path)
+# mixed-precision eigendecomposition (float32 factor policy)
 # ---------------------------------------------------------------------------
 #
 # Why this exists: NUTS acceptance needs the Hamiltonian resolved to O(1)
@@ -114,11 +90,10 @@ def _eigh_safe_jvp(primals, tangents):
 # the f32 whiten/contraction stage is harmless (0.0025 RMS when factors are
 # f64-accurate, even with eigenvectors *stored* in f32).
 #
-# The fix is double-f32 arithmetic on the MXU, not emulated f64 matmuls:
-# an f32 x f32 matmul with ``preferred_element_type=float64`` computes
-# error-free products with f64 accumulation, so splitting an f64 matrix
-# into an (hi, lo) f32 pair makes ``A @ v`` accurate to ~1e-14 relative at
-# 2 f32-matmul cost.  ``eigh_mixed`` runs the fast f32 Jacobi for the
+# The fix is double-f32 arithmetic: the product of two f32 numbers is exact
+# in f64, so an f32 x f32 matmul accumulated in f64 is error-free up to the
+# accumulation, and splitting an f64 matrix into an (hi, lo) f32 pair makes
+# ``A @ v`` accurate to ~1e-14 relative.  ``eigh_mixed`` runs the fast f32 Jacobi for the
 # eigenbasis, then 1-2 double-f32 Rayleigh + first-order rotation
 # corrections: eigenvalues come out f64-quality (diag of the exact-product
 # Gram), eigenvectors f32-stored but directionally accurate wherever the
@@ -135,11 +110,11 @@ def _split_f32(a64):
 
 
 def _mm_f64acc(a32, b32):
-    """f32 x f32 matmul with exact products accumulated in float64."""
-    return jnp.matmul(
-        a32, b32, preferred_element_type=jnp.float64,
-        precision=jax.lax.Precision.HIGHEST,
-    )
+    """f32 x f32 matmul with exact products accumulated in float64.
+
+    The operands are widened first: f32 x f32 products are exact in f64, and
+    the GPU backend refuses a mixed f32-operand / f64-result GEMM."""
+    return jnp.matmul(a32.astype(jnp.float64), b32.astype(jnp.float64))
 
 
 def _df32_apply(a_hi, a_lo, v32):
@@ -180,12 +155,9 @@ def _brickwall_masks(n: int):
 #: instead of float64.  The angles only ever materialize as the f32
 #: rotation matrix ``w_rot`` (the basis ``v`` is f32-stored, so rotations
 #: below f32 resolution cannot be represented anyway), while the
-#: congruence tracking that carries eigenvalue accuracy stays double-f32
-#: — but float64 ELEMENTWISE arithmetic is software-emulated on TPU, and
-#: the ~20 O(n^2) f64 ops per sweep (tau/t/cos/sin/masks), not the MXU
-#: matmuls, dominated the measured 1.8 ms/sweep at nt=600 (PERF.md round
-#: 5).  The one cancellation-sensitive quantity (the eigenvalue gap) is
-#: still differenced in f64 before the cast.
+#: congruence tracking that carries eigenvalue accuracy stays double-f32.
+#: The one cancellation-sensitive quantity (the eigenvalue gap) is still
+#: differenced in f64 before the cast.
 EIGH_MIXED_F32_ROTATIONS = False
 
 
@@ -257,13 +229,10 @@ def _mixed_sweep(b, v, pairing):
 
 def _mixed_sweep32(b32, v, pairing):
     """One refinement sweep with the congruence residual tracked in PLAIN
-    float32 — round-5 temporal-stage cost fix.
+    float32, instead of the four f64-accumulation matmuls per sweep of the
+    exact tracking (:func:`_mixed_sweep`).
 
-    The measured sweep cost (~1.8 ms at nt=600, ~90% of the likelihood's
-    temporal stage) is the four f64-ACCUMULATION matmuls per sweep of the
-    exact tracking, which the MXU cannot run natively — NOT the angle
-    math (f32 angles saved 2%) and not FLOPs.  The tracked matrix only
-    feeds ROTATION DECISIONS, which are f32-limited anyway (the basis is
+    The tracked matrix only feeds ROTATION DECISIONS, which are f32-limited anyway (the basis is
     f32-stored); eigenvalue accuracy comes from ONE exact double-f32
     congruence diagonal computed at the very end
     (:func:`_exact_diag_congruence`), where the Rayleigh-quotient
@@ -309,9 +278,9 @@ def _offdiag_unresolved(b):
 #: exact end diagonal.  The exact tracking is the round-3 original; the
 #: f32 tracking (round 5) produces the same f64-quality spectrum — the
 #: tracked matrix only feeds f32-limited rotation decisions, and the
-#: final eigenvalues come from an exact congruence either way — at ~4x
-#: lower sweep cost on TPU, where f64-accumulation matmuls bypass the
-#: MXU's native f32 accumulators.  Kept as a flag for A/B and fallback.
+#: final eigenvalues come from an exact congruence either way — with
+#: f32 instead of f64-accumulation matmuls in every sweep.  Kept as a
+#: flag for A/B and fallback.
 EIGH_MIXED_EXACT_TRACK = False
 
 
@@ -327,7 +296,7 @@ def _eigh_mixed_impl(a64, identity_start: bool = False, reps: int | None = None)
             jnp.eye(n, dtype=jnp.float32), a_hi.shape
         ) if a_hi.ndim > 2 else jnp.eye(n, dtype=jnp.float32)
     else:
-        _, v = _eigh_impl(a_hi)  # f32 basis (Jacobi on accelerators)
+        _, v = jnp.linalg.eigh(a_hi)  # f32 basis
     m_even, m_odd = _brickwall_masks(n)
     # FIXED repetition count.  An adaptive convergence-gated loop (round-4
     # experiment) is wrong here: at temporal sizes the eps64 off-diagonal
@@ -369,7 +338,7 @@ def eigh_mixed(a64):
     Givens-rotation sweeps (even-adjacent / odd-adjacent / mutual-max
     pairings; each matched 2x2 annihilated outright — no damping) with
     the congruence residual tracked in double-f32 (f32-pair operands,
-    error-free MXU products, f64 accumulation).
+    error-free products, f64 accumulation).
     Returns ``(w float64, v float32)``; ``w`` is NOT re-sorted (order
     follows the f32 eigh; (w_i, v_i) pairs stay aligned, which is all the
     factored Kronecker likelihood needs).  Eigenvector storage in f32 is
@@ -392,11 +361,8 @@ def _mixed_eigh_jvp(fn, primals, tangents):
     w, v = fn(a)
     hp = jax.lax.Precision.HIGHEST
     da32 = (0.5 * (da + jnp.swapaxes(da, -1, -2))).astype(jnp.float32)
-    vt_da_v = jnp.matmul(
-        jnp.matmul(jnp.swapaxes(v, -1, -2), da32, precision=hp),
-        v,
-        precision=hp,
-        preferred_element_type=jnp.float64,
+    vt_da_v = _mm_f64acc(
+        jnp.matmul(jnp.swapaxes(v, -1, -2), da32, precision=hp), v
     )
     dw = jnp.diagonal(vt_da_v, axis1=-2, axis2=-1)
     gap = w[..., None, :] - w[..., :, None]
@@ -568,14 +534,18 @@ class KronFactors(NamedTuple):
     logdet_offset: jnp.ndarray = 0.0  # scalar, see class docstring
 
 
+#: Under the float32 factor policy, matrices smaller than this are
+#: eigendecomposed in full float64 instead of by :func:`eigh_mixed`.
+MIXED_EIGH_MIN_N = 257
+
+
 def _factor_eigh(K):
     """Eigendecomposition at the factor policy's accuracy.
 
-    float64 policy (CPU): exact LAPACK path.  float32 policy
-    (accelerators): :func:`eigh_mixed` — f32 Jacobi basis + double-f32
-    spectrum, which removes the f32 likelihood noise that collapses NUTS
-    step sizes (PERF.md "f32 likelihood noise") at a fraction of emulated
-    f64 cost.
+    float64 policy (the default): exact ``eigh``.  float32 policy:
+    :func:`eigh_mixed` — f32 basis + double-f32 spectrum, which removes
+    most of the evaluation noise a plain f32 eigh puts into the
+    likelihood.
     """
     from .. import config
 
@@ -583,13 +553,11 @@ def _factor_eigh(K):
     K = jnp.asarray(K)
     if fdt == jnp.float64:
         return eigh_safe(K.astype(fdt))
-    if K.shape[-1] < EIGH_JACOBI_MIN_N:
+    if K.shape[-1] < MIXED_EIGH_MIN_N:
         # small graded matrices (the spatial quadrature Gram: 14+ decades
         # of spectrum at nx=24) defeat an f32-basis start entirely — the
-        # sub-f32-eps modes begin as noise directions.  Full-f64 Jacobi is
-        # cheap here and relatively accurate on graded SPD input; measured:
-        # spatial exactness alone drops the likelihood noise 1.86 -> 0.055
-        # RMS log-units (PERF.md "f32 likelihood noise").
+        # sub-f32-eps modes begin as noise directions; full f64 is cheap
+        # at this size
         return eigh_safe(K.astype(jnp.float64))
     return eigh_mixed(K.astype(jnp.float64))
 
@@ -628,31 +596,14 @@ def _spatial_factors(Ks, sig2n, nt, het_exact):
     return qs, lam_s, noise, logdet_offset
 
 
-def dct_basis(n: int):
-    """Orthonormal DCT-II basis matrix (numpy, float64).
-
-    Stationary kernels on a *uniform* grid are near-Toeplitz, and Toeplitz
-    matrices are approximately diagonalized by the DCT — so solving the
-    temporal eigh in this basis hands the iterative Jacobi solver a
-    strongly diagonally-dominant matrix (measured ~13x lower off-norm and
-    ~3x faster on v5e at nt=600; PERF.md).  Exact for any symmetric matrix:
-    it is just a fixed orthogonal similarity.
-    """
-    j = np.arange(n)[:, None]
-    k = np.arange(n)[None, :]
-    C = np.cos(np.pi * (2 * j + 1) * k / (2 * n)) * np.sqrt(2.0 / n)
-    C[:, 0] /= np.sqrt(2.0)
-    return C
-
-
 def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
     """Joint factorization; ``sig2n`` is a scalar or per-channel (nx,) vector.
 
     Matches reference ``comp_eig_D`` with D reshaped to (nx, nt): the
     reference's flat ``Dvec`` is ``repeat(lam_s, nt)*tile(lam_t, nx)+sig2n``
     i.e. row-major (nx, nt) — identical layout.  Factors are computed in the
-    policy factor dtype (float64 on CPU, float32 on accelerators by
-    default — see :class:`gpcsd_tpu.config.Policy`).
+    policy factor dtype (float64 unless :func:`gpcsd_tpu.config.set_policy`
+    says otherwise).
 
     :param het_exact: with vector sig2n, use the exact noise-whitened
         factorization instead of the reference's approximation (SURVEY.md §5);
@@ -661,7 +612,7 @@ def comp_eig_d(Ks, Kt, sig2n, het_exact: bool = False) -> KronFactors:
     from .. import config
 
     fdt = config.get_policy().resolve_factor_dtype()
-    # mixed mode (f32 policy, accelerators): covariances and the spectrum
+    # mixed mode (f32 policy): covariances and the spectrum
     # stay float64 — only the eigenbasis is f32 (see eigh_mixed); rounding
     # K itself to f32 alone injects ~1.5 RMS log-units of likelihood noise
     kdt = jnp.float64 if fdt == jnp.float32 else fdt
@@ -685,9 +636,9 @@ def comp_eig_d_preconditioned(
     """:func:`comp_eig_d` with the temporal eigh solved in a fixed reference
     basis ``q0t`` (typically the MAP's eigenvectors).
 
-    ``B = q0t^T Kt q0t`` is nearly diagonal near the reference point, so the
-    iterative Jacobi eigensolver converges in 1-2 sweeps; the result is the
-    exact eigendecomposition everywhere (``Qt = q0t W``).
+    ``B = q0t^T Kt q0t`` is nearly diagonal near the reference point, which
+    the refinement sweeps of the float32 policy's :func:`eigh_mixed` exploit;
+    the result is the exact eigendecomposition everywhere (``Qt = q0t W``).
     """
     from .. import config
 
@@ -718,9 +669,7 @@ def comp_eig_d_preconditioned(
         qt = jnp.matmul(q032, w_t, precision=hp)
         lam_t = jnp.maximum(lam_t, 0.0)
         if q0s is not None and not (het_exact and sig2n.ndim):
-            # spatial preconditioning (same congruence trick): the full-f64
-            # slices-Jacobi that graded spatial Grams otherwise need is the
-            # costly sequential stage of the mixed path; in a fixed
+            # spatial preconditioning (same congruence trick): in a fixed
             # f64-accurate MAP basis the congruence is near-diagonal with
             # RELATIVE structure intact, so identity-start double-f32
             # sweeps finish it with a handful of tiny matmuls
@@ -765,9 +714,8 @@ def comp_eig_d_preconditioned(
 def whiten(factors: KronFactors, Y):
     """``alpha = Qs^T Y Qt`` batched over leading axes; Y is (..., nx, nt).
 
-    The contraction runs in the policy compute dtype (float32 on
-    accelerators — float64 matmuls are emulated on TPU; the eigenbasis and
-    the D-weighted reduction stay in the factor dtype).
+    The contraction runs in the policy compute dtype (float64 by default;
+    the eigenbasis and the D-weighted reduction stay in the factor dtype).
     """
     from .. import config
 

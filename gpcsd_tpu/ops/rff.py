@@ -13,7 +13,7 @@ O(1/sqrt(M)) prior kernel approximation:
     csd(x) ~= sqrt(2/M) * sum_m cos(w_m^T x + b_m) z_m,
     w_m ~ N(0, diag(1/ell^2)),  b_m ~ U(0, 2pi)   (SE spectral measure)
 
-TPU-first: everything is one (npoints, M) feature matrix and batched
+Everything is one (npoints, M) feature matrix and batched
 matmuls — no large Cholesky, no gather.
 """
 

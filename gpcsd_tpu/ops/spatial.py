@@ -10,7 +10,7 @@ and LFP-CSD spatial covariances are
 
 and their 2D analogues on a tensor-product rule (compKphi_2d :204-232,
 compKphig_2d :188-202).  Everything here is a chain of elementwise ops into
-matmuls — exactly what XLA fuses and maps to the MXU.  The quadrature rule and
+matmuls — exactly what XLA fuses and hands to the matrix units.  The quadrature rule and
 pairwise deltas are static geometry, passed in as arrays so the functions stay
 pure/jittable; the model layer precomputes them once.
 """

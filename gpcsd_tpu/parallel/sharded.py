@@ -112,8 +112,10 @@ def nuts_sharded(
     max_depth: int = 10,
     target_accept: float = 0.8,
     init_overrides=None,
-    warm_basis: bool = True,
+    warm_basis: bool = False,
     dense_mass: bool = False,
+    u0s=None,
+    to_u=None,
 ):
     """NUTS with chains sharded over the ``chain`` mesh axis and the trial
     likelihood psum-reduced over the ``trial`` axis.
@@ -121,13 +123,18 @@ def nuts_sharded(
     Returns a :class:`gpcsd_tpu.infer.nuts.NUTSResult` with a leading
     (n_chains,) axis, fully gathered to the host.
 
+    :param u0s: (n_chains, dim) initial positions in the sampling space;
+        default one prior draw per chain.
+    :param to_u: map from the sampling space to the unconstrained parameter
+        vector (e.g. Laplace whitening); default identity.
+
     :param warm_basis: thread the temporal eigenbasis along trajectories
-        (warm-started iterative eigh; exact everywhere, pure win on
-        accelerators where the eigh is iterative Jacobi).
+        (exact everywhere; pays only with the float32 policy's refinement
+        sweeps).
     :param dense_mass: adapt a full-covariance metric during warmup (Stan
-        dense_e analog) — the production single-chip configuration since
-        round 5; the (dim, dim) metric is per-chain state sharded with the
-        chain axis, so the multi-chip path needs no extra collective.
+        dense_e analog); the (dim, dim) metric is per-chain state sharded
+        with the chain axis, so the multi-device path needs no extra
+        collective.
     """
     from ..infer.nuts import nuts_run
 
@@ -138,19 +145,26 @@ def nuts_sharded(
 
     Y = np.asarray(Y)
     Y_padded, ntrials = pad_to_multiple(Y, n_trial_dev, axis=0)
-    log_prob = make_trial_sharded_log_prob(fns, ntrials)
-    log_prob_aux = (
+    to_u = (lambda v: v) if to_u is None else to_u
+    log_prob_u = make_trial_sharded_log_prob(fns, ntrials)
+    log_prob_aux_u = (
         make_trial_sharded_log_prob_aux(fns, ntrials) if warm_basis else None
     )
     basis0 = (
         jax.tree_util.tree_map(jnp.asarray, fns.basis0) if warm_basis else None
     )
 
-    # prior-draw initial positions, one per chain
-    u0s = []
-    for k in jax.random.split(jax.random.fold_in(key, 0), n_chains):
-        theta0 = fns.param_set.sample(k, fixed=init_overrides)
-        u0s.append(fns.param_set.clip_to_bounds(fns.param_set.pack(theta0)))
+    def log_prob(v, Y_local):
+        return log_prob_u(to_u(v), Y_local)
+
+    def log_prob_aux(v, Y_local, basis):
+        return log_prob_aux_u(to_u(v), Y_local, basis)
+
+    if u0s is None:  # prior-draw initial positions, one per chain
+        u0s = []
+        for k in jax.random.split(jax.random.fold_in(key, 0), n_chains):
+            theta0 = fns.param_set.sample(k, fixed=init_overrides)
+            u0s.append(fns.param_set.clip_to_bounds(fns.param_set.pack(theta0)))
     u0s = jnp.stack(u0s)
     keys = jax.random.split(jax.random.fold_in(key, 1), n_chains)
 

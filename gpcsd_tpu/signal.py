@@ -8,7 +8,7 @@ The reference pipelines lean on scipy.signal for phase extraction:
   (``fit_gpcsd_baseline.py:303-322``)
 - periodograms (``fit_gpcsd_baseline.py:189-269``)
 
-TPU-first: filter *design* stays on the host (scipy, static coefficients);
+Filter *design* stays on the host (scipy, static coefficients);
 filter *application* is a ``lax.scan`` over time (second-order sections,
 direct-form II transposed) with all channel/trial axes batched, and the
 spectral ops ride ``jnp.fft``.

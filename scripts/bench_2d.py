@@ -6,9 +6,8 @@ geometry, nt=375 time points (150 ms window at 2.5 kHz), 100 trials,
 ngl 30x120 quadrature (3600-node Gram), eps=1 — the largest problem the
 reference fits, and the 2D analogue of bench.py's auditory-size headline.
 
-Exercises on the accelerator: the 3600^2 quadrature Gram matmul chain in
-``ops/spatial.compkphi_2d``, the nt=375 temporal eigh through the tiered
-Jacobi solver (above the XLA TPU compile cliff, PERF.md), and the batched
+Exercises on the device: the 3600^2 quadrature Gram matmul chain in
+``ops/spatial.compkphi_2d``, the nt=375 temporal eigh, and the batched
 trial contraction.
 
 Prints one JSON line per configuration.

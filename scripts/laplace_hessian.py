@@ -5,13 +5,10 @@ float64 on CPU (batched central finite differences of the f64 gradient,
 ~25 s at the auditory size) and writes it to ``<paper-dir>/hessian_f64.npz``
 for ``sample_posterior(laplace_hessian=...)``.
 
-Why a separate process: the numeric policy (``gpcsd_tpu/config.py``) keys
-dtypes off ``jax.default_backend()`` at trace time, so f64 factors require
-a CPU-backend process.  The TPU in-process fallback (FD of f32 gradients)
-gets the stiff curvatures to ~2% but buries the soft ones in an O(1e3)
-noise floor (measured: true soft eigenvalues {1e-10, 0.21} come out as
-{-30, -2.8} at the auditory size); the f64 stencil resolves them exactly,
-so NUTS warmup starts from correct scales in every direction.
+A CPU float64 control for the Hessian ``sample_posterior`` computes in
+process: an FD Hessian of float32-policy gradients buries the soft
+curvatures in gradient noise, while the f64 stencil resolves them, so
+NUTS warmup starts from correct scales in every direction.
 
     python scripts/laplace_hessian.py --paper-dir results/paper_nuts
 """

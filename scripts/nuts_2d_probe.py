@@ -1,4 +1,4 @@
-"""GPCSD2D NUTS throughput probe at the Neuropixels size (TPU).
+"""GPCSD2D NUTS throughput probe at the Neuropixels size.
 
 BASELINE.json config 5 asks for the 2D model under the samplers "at scale".
 This drives the full production sampler stack (Laplace-whitened, chunked,
@@ -103,9 +103,8 @@ def main():
     ap.add_argument("--prep-only", action="store_true",
                     help="CPU stage: generate+cache the surrogate and the "
                          "float64 FD Hessian at the generating parameters "
-                         "(the TPU FD fallback buries soft curvatures in "
-                         "f32 noise — same rationale as the paper run's "
-                         "scripts/laplace_hessian.py), then exit")
+                         "(same as the paper run's scripts/laplace_hessian.py), "
+                         "then exit")
     args = ap.parse_args()
     os.makedirs(args.out_dir, exist_ok=True)
     t0_process = time.time()

@@ -1,16 +1,16 @@
-"""Posterior-moment accuracy acceptance: TPU dense-metric NUTS vs a
-CPU-float64 control posterior vs ground truth (VERDICT r4 next #2).
+"""Posterior-moment accuracy acceptance: accelerator dense-metric NUTS vs
+a CPU-float64 control posterior vs ground truth.
 
 The BASELINE north star requires "posterior moments within MC error of
 reference".  The exactness contract is CPU float64 (SURVEY.md §5), so the
 control is the SAME unified driver (``scripts/paper_nuts_run.py
 --platform cpu``) on the SAME cached surrogate / MAP / Hessian inputs —
-an independent sampler run whose only systematic difference from the TPU
-run is the f32-factor mixed-precision likelihood policy.
+an independent sampler run whose only systematic difference from the
+device run is the device's numerics.
 
 Per shared parameter this script records
 
-    z = |mean_tpu - mean_cpu| / sqrt(sd_tpu^2/ess_tpu + sd_cpu^2/ess_cpu)
+    z = |mean_dev - mean_cpu| / sqrt(sd_dev^2/ess_dev + sd_cpu^2/ess_cpu)
 
 (the combined Monte-Carlo standard error, each side's MCSE from its
 rank-normalized bulk ESS) and the acceptance gate ``max |z| < 3``.  It
@@ -20,7 +20,7 @@ identification (how far truth sits within the posterior), NOT numerical
 agreement, and are reported unguarded.
 
     python scripts/posterior_accuracy.py \
-        --tpu results/paper_nuts_dense --cpu results/paper_nuts_cpu64 \
+        --device-run results/paper_nuts_dense --cpu results/paper_nuts_cpu64 \
         --out results/posterior_accuracy/acceptance.json
 """
 
@@ -62,14 +62,14 @@ def moments(u, names):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", default="results/paper_nuts_dense")
+    ap.add_argument("--device-run", default="results/paper_nuts_dense")
     ap.add_argument("--cpu", default="results/paper_nuts_cpu64")
     ap.add_argument("--out",
                     default="results/posterior_accuracy/acceptance.json")
     ap.add_argument("--z-max", type=float, default=3.0)
     args = ap.parse_args()
 
-    art_t, u_t = load_run(args.tpu)
+    art_t, u_t = load_run(args.device_run)
     art_c, u_c = load_run(args.cpu)
     names = list(art_t.get("rhat", {}).keys())
     assert len(names) == u_t.shape[-1] == u_c.shape[-1], (
@@ -101,11 +101,11 @@ def main():
         coverage[k] = [float(v) for v in np.atleast_1d(zz)]
 
     result = {
-        "tpu_run": args.tpu,
+        "device_run": args.device_run,
         "cpu_run": args.cpu,
-        "tpu_backend": art_t.get("backend"),
+        "device_backend": art_t.get("backend"),
         "cpu_backend": art_c.get("backend"),
-        "tpu_health": {
+        "device_health": {
             "max_rhat": art_t.get("max_rhat"),
             "min_ess": art_t.get("min_ess"),
             "divergences": art_t.get("divergences"),
@@ -119,7 +119,7 @@ def main():
         "max_z": max_z,
         "z_max_gate": args.z_max,
         "pass": bool(max_z < args.z_max),
-        "tpu_moments_u": m_t,
+        "device_moments_u": m_t,
         "cpu_moments_u": m_c,
         "truth_coverage_z": coverage,
     }

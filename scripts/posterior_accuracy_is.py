@@ -1,16 +1,15 @@
 """Importance-sampling posterior-moment acceptance: CPU-float64 density
-over the TPU dense-metric draws (VERDICT r4 next #2, IS variant).
+over an accelerator run's dense-metric draws (IS variant).
 
 The exactness contract is CPU float64.  Evaluating the f64 log-density
-at every TPU posterior draw gives self-normalized importance weights
-``w_i = exp(logp64(u_i) - logpTPU(u_i))``; when the TPU-vs-f64 density
-difference is a smooth near-constant offset (measured round 4: sd 0.029
-log-units over 64 draws, IS ESS fraction 0.9992), the reweighted moments
+at every device posterior draw gives self-normalized importance weights
+``w_i = exp(logp64(u_i) - logpDEV(u_i))``; when the device-vs-f64 density
+difference is a smooth near-constant offset, the reweighted moments
 ARE the f64 posterior's moments with ordinary MC error, and
 
     z_k = |mean_raw - mean_reweighted| / MCSE_k
 
-quantifies how far TPU numerics move each posterior mean.  MCSE uses the
+quantifies how far the device's numerics move each posterior mean.  MCSE uses the
 rank-normalized bulk ESS of the raw chains (the weights are ~constant,
 so the reweighted estimator shares the chain autocorrelation).
 
@@ -131,7 +130,7 @@ def main():
         # the same shift in units of the POSTERIOR sd: at bulk ESS ~2000
         # the MCSE is ~sd/45, so a z of 4.5 is a ~0.1-sd mean shift — the
         # sd-relative number is the scientifically meaningful effect size
-        # of TPU numerics on the posterior, the z is the strict
+        # of device numerics on the posterior, the z is the strict
         # within-MC-error test (both reported; neither replaces the other)
         shift_sd = np.abs(mean_raw - mean_rw) / np.maximum(sd, 1e-300)
         result.update({

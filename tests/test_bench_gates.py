@@ -1,5 +1,5 @@
-"""bench.py sampler-health gates (VERDICT r3 next #2): the headline NUTS
-number must be impossible to fake with a degenerate or non-mixing run."""
+"""bench.py sampler-health gates: a NUTS rate must be impossible to report
+from a degenerate, frozen, divergent or non-mixing run."""
 
 import importlib.util
 import os
@@ -12,42 +12,39 @@ spec.loader.exec_module(bench)
 
 
 def _healthy():
-    return {
-        "samples_per_s_per_chip_median": 0.41,
-        "mean_leapfrogs_per_sample": 22.0,
-        "max_rhat": 1.01,
-        "config": {"chains": 4, "warmup": 500, "samples": 500,
-                   "max_depth": 7, "chunk_size": 3},
-    }
+    return dict(steps=22.0, accept=0.8, n_divergent=0, max_rhat=1.01,
+                max_depth=7)
+
+
+def _failures(**over):
+    return bench.nuts_gate_failures(**{**_healthy(), **over})
 
 
 class TestArtifactGates:
     def test_healthy_passes(self):
-        rate, steps, src, max_rhat = bench.artifact_nuts_rate(_healthy())
-        assert rate == 0.41 and steps == 22.0
-        assert "max_depth=7" in src and "4x(500+500)" in src
-        assert max_rhat == 1.01
+        assert _failures() == []
+        # the trajectory cap follows max_depth: 2**(max_depth-1) leapfrogs
+        assert _failures(steps=64.0) == []
+        assert _failures(steps=64.0, max_depth=6) != []
 
     def test_round2_frozen_chains_rejected(self):
-        art = _healthy()
-        art["max_rhat"] = 1.2e4  # the round-2 pathology
-        assert bench.artifact_nuts_rate(art) is None
-        assert any("max_rhat" in f for f in bench.artifact_gate_failures(art))
+        fails = _failures(max_rhat=1.2e4)  # chains stuck in separate places
+        assert any("R-hat" in f for f in fails)
+        # every tree at the depth cap with collapsed acceptance: frozen
+        assert _failures(steps=127.0, accept=0.05) != []
 
     def test_round3_degenerate_leapfrogs_rejected(self):
-        art = _healthy()
-        art["mean_leapfrogs_per_sample"] = 1.0  # the round-3 pathology
-        assert bench.artifact_nuts_rate(art) is None
+        fails = _failures(steps=1.0)  # ~1 leapfrog per transition
+        assert len(fails) == 1 and "leapfrogs" in fails[0]
 
     def test_missing_fields_rejected(self):
-        assert bench.artifact_nuts_rate({}) is None
-        art = _healthy()
-        art["max_rhat"] = None
-        assert bench.artifact_nuts_rate(art) is None
+        fails = bench.nuts_gate_failures(None, None, None, None, 7)
+        assert len(fails) == 4
+        assert _failures(max_rhat=None) != []
 
     def test_borderline_rhat(self):
-        art = _healthy()
-        art["max_rhat"] = 1.049
-        assert bench.artifact_nuts_rate(art) is not None
-        art["max_rhat"] = 1.051
-        assert bench.artifact_nuts_rate(art) is None
+        assert _failures(max_rhat=1.99) == []
+        assert _failures(max_rhat=2.0) != []
+        assert _failures(accept=0.6) == [] and _failures(accept=0.95) == []
+        assert _failures(accept=0.59) != [] and _failures(accept=0.96) != []
+        assert _failures(n_divergent=1) != []

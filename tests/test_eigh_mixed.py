@@ -1,12 +1,11 @@
 """Mixed-precision factor path (`kronlik.eigh_mixed`, `_factor_eigh`).
 
-This is the accelerator likelihood-accuracy fix (PERF.md "f32 likelihood
-noise"): a pure-f32 factor policy carries ~2 RMS log-units of evaluation
-noise at the auditory problem size, which collapsed the paper-run NUTS
-step sizes to ~1e-10 in rounds 2 and 3.  The mixed path keeps covariances
-and the spectrum in float64 (double-f32 MXU products) with f32-stored
-eigenvectors; these tests pin its accuracy contract on CPU where the
-float64 control is exact.
+The explicit float32 factor policy's accuracy fix: a pure-f32 factor
+policy carries ~2 RMS log-units of evaluation noise at the auditory
+problem size, enough to collapse NUTS step sizes.  The mixed path keeps
+covariances and the spectrum in float64 (double-f32 products) with
+f32-stored eigenvectors; these tests pin its accuracy contract on CPU
+where the float64 control is exact.
 """
 
 import numpy as np
@@ -48,9 +47,7 @@ class TestEighMixed:
         assert np.abs(v.T @ v - np.eye(K.shape[0])).max() < 5e-6
 
     def test_f32_rotation_build_matches_contract(self):
-        """Round-5 sweep-cost fix: rotation angles built in f32 (the f64
-        elementwise angle math was the measured sweep bottleneck on TPU —
-        f64 is software-emulated there) must preserve the eigenvalue
+        """Rotation angles built in f32 must preserve the eigenvalue
         accuracy contract: the angles only materialize as the f32
         ``w_rot`` anyway; eigenvalues come from the double-f32-tracked
         congruence either way, and the gap is differenced in f64 before

@@ -197,8 +197,7 @@ class TestChunkedNUTS:
     def test_state_path_resume_is_exact(self, tmp_path):
         """Kill the driver mid-run; rerunning with the same state_path must
         resume from the last completed chunk and produce bit-identical
-        samples to an uninterrupted run (crash recovery for flaky TPU
-        workers)."""
+        samples to an uninterrupted run (crash recovery)."""
         from gpcsd_tpu.infer.nuts import nuts_chains_chunked
 
         def lp(u):
@@ -475,7 +474,7 @@ class TestLBFGSChunked:
     def test_chunked_matches_monolithic_bitwise(self, rng):
         """The host-chunked batched driver must produce the exact iterates
         of vmap(lbfgs_minimize) — the chunk boundary only splits the
-        while_loop (accelerator-stability pattern, PERF.md §6)."""
+        while_loop."""
         import jax
         import jax.numpy as jnp
 

@@ -141,7 +141,7 @@ class TestLaplaceWhitening:
 
         real_hessian = _jax.hessian
 
-        def bad_hessian(f):  # simulate the TPU NaN-Hessian failure mode
+        def bad_hessian(f):  # simulate a NaN-producing AD Hessian
             fn = real_hessian(f)
             return lambda u: fn(u) * np.nan
 
@@ -198,11 +198,10 @@ class TestADVIMesh:
 
 class TestUnpackFloor:
     def test_extreme_negative_u_stays_positive_and_finite(self):
-        """TPU double-f32 emulation flushes exp(u) to exactly 0 below the
-        f32 range, which turned priors into -inf cliffs on device while
-        CPU f64 stayed finite (round-4 acceptance: one Neuropixels-2D
-        point).  The bijector floors constrained values just above the
-        flush threshold on every backend."""
+        """In a float32 range exp(u) flushes to exactly 0 below ~-87,
+        which turns priors into -inf cliffs where float64 stays finite.
+        The bijector floors constrained values just above the flush
+        threshold on every backend."""
         import numpy as np
         import jax.numpy as jnp
         import gpcsd_tpu as g

@@ -53,12 +53,8 @@ class TestEighJacobi:
         assert np.allclose(np.asarray(w), wr, rtol=1e-6, atol=1e-14)
 
     def test_slices_method_graded_spd(self, rng):
-        """Explicit ``method='slices'`` parity on a graded SPD matrix —
-        the exact configuration the accelerator branch of
-        ``kronlik._eigh_impl`` routes small-n float64 eigh through
-        (ADVICE r3: that routing is otherwise untestable under the
-        CPU-forced suite, so pin the algorithm itself here and the
-        routing in the accelerator-marked test below)."""
+        """Explicit ``method='slices'`` parity on a graded SPD matrix (14
+        decades of spectrum, like the spatial quadrature Gram)."""
         n = 48
         d = 10.0 ** np.linspace(-14, 0, n)
         Q = np.linalg.qr(rng.normal(size=(n, n)))[0]
@@ -69,23 +65,28 @@ class TestEighJacobi:
         V = np.asarray(V)
         assert np.abs(V.T @ V - np.eye(n)).max() < 1e-10
 
-    @pytest.mark.skipif(
-        jax.default_backend() == "cpu",
-        reason="exercises the accelerator-only f64 eigh routing",
-    )
-    def test_accelerator_small_f64_routing_parity(self, rng):
-        """On an accelerator backend, `kronlik._eigh_impl` must route
-        small-n float64 through the slices-Jacobi and match a NumPy f64
-        control on a graded SPD matrix (ADVICE r3 low #4)."""
+    def test_accelerator_small_f64_routing_parity(self, rng, monkeypatch):
+        """No backend is routed to the Jacobi solvers any more: with the
+        backend reported as a GPU, ``kronlik.eigh_safe`` on a small graded
+        f64 matrix is exactly ``jnp.linalg.eigh`` and matches NumPy, and
+        ``eigh_jacobi``'s default method is ``slices``."""
         from gpcsd_tpu.ops import kronlik
 
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         n = 24
         d = 10.0 ** np.linspace(-13, 0, n)
         Q = np.linalg.qr(rng.normal(size=(n, n)))[0]
-        A = Q @ np.diag(d) @ Q.T
-        w, V = kronlik._eigh_impl(jnp.asarray(A, jnp.float64))
-        wr = np.linalg.eigh(A)[0]
-        assert np.allclose(np.sort(np.asarray(w)), wr, rtol=1e-5, atol=1e-13)
+        A = jnp.asarray(Q @ np.diag(d) @ Q.T, jnp.float64)
+        w, V = kronlik.eigh_safe(A)
+        w_ref, V_ref = jnp.linalg.eigh(A)
+        np.testing.assert_array_equal(np.asarray(w), np.asarray(w_ref))
+        np.testing.assert_array_equal(np.asarray(V), np.asarray(V_ref))
+        wr = np.linalg.eigh(np.asarray(A))[0]
+        assert np.allclose(np.asarray(w), wr, rtol=1e-5, atol=1e-13)
+        np.testing.assert_array_equal(
+            np.asarray(eigh_jacobi(A)[0]),
+            np.asarray(eigh_jacobi(A, method="slices")[0]),
+        )
 
     def test_vmap_batched(self, rng):
         As = rng.normal(size=(3, 16, 16))

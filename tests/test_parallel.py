@@ -156,11 +156,9 @@ class TestShardedDrivers:
         assert np.isfinite(res.logp).all()
 
     def test_nuts_sharded_mixed_policy_dict_basis(self, rng):
-        """The PRODUCTION accelerator configuration on the virtual mesh:
-        f32 factor policy (mixed path) + MAP-centered preconditioning, so
-        the dict-valued {qt, qs} basis aux threads through shard_map +
-        scan (the round-4 spatial-threading path — this is what runs on
-        real chips)."""
+        """The explicit float32 factor policy on the virtual mesh: mixed
+        path + MAP-centered preconditioning, so the dict-valued {qt, qs}
+        basis aux threads through shard_map + scan."""
         from gpcsd_tpu import config
 
         config.set_policy(factor_dtype="float32", compute_dtype="float32",

@@ -11,18 +11,16 @@ Everything here is CPU float64 (conftest forces the CPU backend), so the
 tolerance is numerical-roundoff tight.
 """
 
-import json
 import os
+import sys
 
 import numpy as np
-import pytest
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-GOLD = np.load(os.path.join(HERE, "goldens", "reference_goldens.npz"))
-with open(os.path.join(HERE, "goldens", "reference_scalars.json")) as f:
-    SCAL = json.load(f)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens"))
+import reference_models as rm  # noqa: E402
 
-RTOL = 1e-8
+GOLD, SCAL = rm.GOLD, rm.SCAL
+RTOL = rm.LOGLIK_RTOL
 
 
 def close(ours, key, rtol=RTOL, atol=1e-12):
@@ -137,29 +135,8 @@ class TestPriors:
         close(ours, "halfnormal_lpdf")
 
 
-def _spatial_cov_1d():
-    from gpcsd_tpu.models.covariances import GPCSD1DSpatialCovSE
-
-    xs = np.linspace(0.0, 700.0, 8)[:, None]
-    scov = GPCSD1DSpatialCovSE(xs, a=-200.0, b=900.0, ngl=24)
-    scov.params["ell"]["value"] = 200.0
-    return scov
-
-
-def _temporal_covs():
-    from gpcsd_tpu.models.covariances import (
-        GPCSDTemporalCovMatern,
-        GPCSDTemporalCovSE,
-    )
-
-    ts = np.arange(12.0)[:, None]
-    tse = GPCSDTemporalCovSE(ts)
-    tse.params["ell"]["value"] = 7.0
-    tse.params["sigma2"]["value"] = 1.1
-    tma = GPCSDTemporalCovMatern(ts)
-    tma.params["ell"]["value"] = 2.5
-    tma.params["sigma2"]["value"] = 0.6
-    return tse, tma
+_spatial_cov_1d = rm.spatial_cov_1d
+_temporal_covs = rm.temporal_covs
 
 
 class TestCovariances:
@@ -194,23 +171,7 @@ class TestCovariances:
         assert tse.params["sigma2"]["max"] == SCAL["tempSE_sigma2_max"]
 
 
-def _model_1d(het=False):
-    import gpcsd_tpu as g
-
-    xs = np.linspace(0.0, 700.0, 8)[:, None]
-    ts = np.arange(12.0)[:, None]
-    tse, tma = _temporal_covs()
-    kw = {}
-    if het:
-        kw["sig2n_prior"] = [g.HalfNormal(0.1) for _ in range(8)]
-    m = g.GPCSD1D(GOLD["m1_Y"], xs, ts, a=-200.0, b=900.0, ngl=24,
-                  spatial_cov=_spatial_cov_1d(), temporal_cov_list=[tse, tma],
-                  **kw)
-    m.R["value"] = 150.0
-    m.sig2n["value"] = (
-        GOLD["ceD_sig2n_vec"] if het else 0.05
-    )
-    return m
+_model_1d = rm.model_1d
 
 
 class TestGPCSD1DGolden:
@@ -233,34 +194,15 @@ class TestGPCSD1DGolden:
 
     def test_predict(self):
         m = _model_1d()
-        zq = np.linspace(50.0, 650.0, 5)[:, None]
-        ts = np.arange(12.0)[:, None]
-        m.predict(zq, ts, type="both")
-        # atol at the jitter scale: we add the 1e-8 Ks jitter at predict
-        # time where the reference omits it (SURVEY.md §5 quirk), which
-        # shifts near-zero predictions by ~1e-9 absolute
-        close(m.csd_pred, "m1_csd_pred", rtol=1e-6, atol=1e-8)
-        close(m.lfp_pred, "m1_lfp_pred", rtol=1e-6, atol=1e-8)
-        close(m.csd_pred_list[0], "m1_csd_pred_c0", rtol=1e-6, atol=1e-8)
-        close(m.csd_pred_list[1], "m1_csd_pred_c1", rtol=1e-6, atol=1e-8)
+        rm.predict_1d(m)
+        # atol at the jitter scale (see reference_models.PREDICT_ATOL)
+        for key, get in rm.PREDICT_KEYS.items():
+            close(get(m), key, rtol=rm.PREDICT_RTOL, atol=rm.PREDICT_ATOL)
 
 
 class TestGPCSD2DGolden:
     def _model(self):
-        import gpcsd_tpu as g
-
-        t2 = np.arange(9.0)[:, None]
-        m = g.GPCSD2D(GOLD["m2_Y"], GOLD["m2_x"], t2, a1=0.0, b1=64.0,
-                      a2=-50.0, b2=350.0, ngl1=8, ngl2=12, eps=1.0)
-        m.R["value"] = 80.0
-        m.spatial_cov.params["ell1"]["value"] = 30.0
-        m.spatial_cov.params["ell2"]["value"] = 100.0
-        m.temporal_cov_list[0].params["ell"]["value"] = 4.0
-        m.temporal_cov_list[0].params["sigma2"]["value"] = 1.0
-        m.temporal_cov_list[1].params["ell"]["value"] = 1.5
-        m.temporal_cov_list[1].params["sigma2"]["value"] = 0.5
-        m.sig2n["value"] = 0.1
-        return m
+        return rm.model_2d()
 
     def test_loglik(self):
         m = self._model()

@@ -4,8 +4,7 @@ The sampler hot loop can solve the temporal eigh in the basis carried from
 the previous leapfrog step (``ModelFns.log_prob_basis``); exactness requires
 that the log-density and its gradient are invariant to the basis, and that
 the carried basis stays orthogonal over long products of f32 factors.
-PERF.md 'warm-started Jacobi' is the TPU motivation; these tests pin the
-math on CPU float64.
+These tests pin the math on CPU float64.
 """
 
 import jax
