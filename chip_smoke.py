@@ -312,7 +312,7 @@ def phase_nuts(seed, device):
 
     nm = bench.build_nuts_problem(seed, het_noise="exact")
     t0 = time.perf_counter()
-    nm.fit(n_restarts=FIT_RESTARTS, seed=seed)
+    bench.fit_nuts_problem(nm, seed=seed, n_restarts=FIT_RESTARTS)
     fit_s = time.perf_counter() - t0
     fns = nm._fns()
     Y = nm._Y()

@@ -316,6 +316,10 @@ class GPCSD1D(InferenceAPIMixin):
 
         :param backend: 'jax' (vmapped restarts on the device) or 'scipy'
             (serial L-BFGS-B, reference-parity path).
+        :param options: passed to :func:`~gpcsd_tpu.infer.map.map_fit`:
+            ``maxiter``, ``gtol``, ``ftol``, ``chunk_iters``, ``state_path``,
+            ``max_wall_seconds`` and ``init_overrides`` (constrained values
+            every restart starts from; the priors draw the rest).
         """
         del method  # only L-BFGS variants are supported, as in the reference
         options = options or {}
@@ -334,6 +338,7 @@ class GPCSD1D(InferenceAPIMixin):
             chunk_iters=options.get("chunk_iters"),
             state_path=options.get("state_path"),
             max_wall_seconds=options.get("max_wall_seconds"),
+            init_overrides=options.get("init_overrides"),
         )
         theta = fns.param_set.unpack(jnp.asarray(res.u_best))
         if fix_R:

@@ -344,6 +344,7 @@ class GPCSD2D(InferenceAPIMixin):
             chunk_iters=options.get("chunk_iters"),
             state_path=options.get("state_path"),
             max_wall_seconds=options.get("max_wall_seconds"),
+            init_overrides=options.get("init_overrides"),
         )
         theta = fns.param_set.unpack(jnp.asarray(res.u_best))
         if fix_R:

@@ -4,11 +4,32 @@ from a degenerate, frozen, divergent or non-mixing run."""
 import importlib.util
 import os
 
+import numpy as np
+
 spec = importlib.util.spec_from_file_location(
     "bench", os.path.join(os.path.dirname(__file__), "..", "bench.py")
 )
 bench = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(bench)
+
+
+def test_nuts_fit_starts_at_generating_temporal_parameters(monkeypatch):
+    for name, value in (("NX", 4), ("NT", 12), ("NTRIALS", 2), ("NGL", 20)):
+        monkeypatch.setattr(bench, name, value)
+    m = bench.build_nuts_problem(0, het_noise="exact")
+    theta = m._theta()
+    seen = {}
+
+    def fake_fit(n_restarts, seed, options):
+        seen.update(n_restarts=n_restarts, seed=seed, **options)
+
+    monkeypatch.setattr(m, "fit", fake_fit)
+    bench.fit_nuts_problem(m, seed=3, n_restarts=5)
+    start = seen.pop("init_overrides")
+    assert seen == dict(n_restarts=5, seed=3)
+    assert sorted(start) == sorted(bench.NUTS_FIT_START)
+    for k, v in start.items():
+        np.testing.assert_array_equal(v, np.asarray(theta[k]))
 
 
 def _healthy():

@@ -198,6 +198,16 @@ class TestFit:
         m.fit(n_restarts=2, backend="jax", fix_R=True, seed=1)
         assert m.R["value"] == R0
 
+    def test_init_overrides_start_every_restart(self, rng):
+        m = make_model(rng, nx=6, nt=10, ntrials=2)
+        names = m._fns().param_set.names_flat()
+        res = m.fit(n_restarts=3, backend="jax", seed=1, options={
+            "maxiter": 0, "init_overrides": {"tm0_ell": 7.0, "tm1_sigma2": 0.3}})
+        np.testing.assert_allclose(np.exp(res.u_all[:, names.index("tm0_ell")]), 7.0)
+        np.testing.assert_allclose(np.exp(res.u_all[:, names.index("tm1_sigma2")]), 0.3)
+        # the priors still draw the rest
+        assert np.ptp(res.u_all[:, names.index("tm1_ell")]) > 0
+
     def test_backends_agree(self, rng):
         """jax and scipy backends reach comparable objective values."""
         m = make_model(rng, nx=6, nt=10, ntrials=2)

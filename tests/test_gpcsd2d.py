@@ -93,6 +93,13 @@ class TestFit:
         res = m.fit(n_restarts=2, backend="jax", seed=0)
         assert np.isfinite(res.nll_best)
 
+    def test_init_overrides_start_every_restart(self, rng):
+        m = make_model(rng)
+        names = m._fns().param_set.names_flat()
+        res = m.fit(n_restarts=2, backend="jax", seed=0, options={
+            "maxiter": 0, "init_overrides": {"tm0_ell": 7.0}})
+        np.testing.assert_allclose(np.exp(res.u_all[:, names.index("tm0_ell")]), 7.0)
+
     def test_param_roundtrip(self, rng):
         m = make_model(rng)
         p = m.extract_model_params()
